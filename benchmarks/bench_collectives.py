@@ -1,11 +1,10 @@
-"""Collective-traffic accounting for the distributed programs (SCALING.md).
+"""Collective-traffic accounting for the distributed programs.
 
 For mesh sizes 1/2/4/8 (virtual CPU devices — the partitioned HLO is
 identical to a real slice's), compiles each distributed program and counts
 the collectives XLA inserted, with per-op payload bytes read from the HLO
-shapes. This is the per-step communication side of the scaling dossier:
-multiply by step rate and divide by ICI/DCN bandwidth to get the
-communication share of a step, without needing N real chips.
+shapes. Multiply by step rate and divide by the interconnect's bandwidth
+to get the communication share of a step, without needing N real cards.
 
     python benchmarks/bench_collectives.py --devices 8
 """

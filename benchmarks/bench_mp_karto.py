@@ -1,8 +1,7 @@
-"""Timed multi-process KARTO FRONT-END rung (round-4 VERDICT item 7).
+"""Timed multi-process KARTO FRONT-END rung.
 
-Mirrors the solver's SCALING.md §3 measurement for the full online
-pipeline: the same mission run on (a) 1 process / 2 virtual CPU devices
-and (b) 2 processes / 2 devices each (`jax.distributed` + Gloo standing
+The full online pipeline, the same mission run on (a) 1 process / 2
+virtual CPU devices and (b) 2 processes / 2 devices each (`jax.distributed` + Gloo standing
 in for DCN), wall per accepted scan + per-stage attribution from
 `KartoSLAM.timer`. Correctness of the 2-process run vs single-device is
 asserted inside the worker (tests/mp_karto_worker.py) before timing.

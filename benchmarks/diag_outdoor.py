@@ -1,4 +1,4 @@
-"""Diagnose the offline outdoor ATE (VERDICT round-4 item 3).
+"""Diagnose the offline outdoor ATE.
 
 Runs the outdoor offline mission, then decomposes the remaining error:
   * chain ATE (integrated PL-ICP odometry, pre-solve)

@@ -29,20 +29,12 @@ def main():
 
     import jax.numpy as jnp
 
-    import jax
-
     from tpu_slam import geometry as geo
     from tpu_slam.config import default_config
     from tpu_slam.data import simulator as sim
     from tpu_slam.data.scan import make_scan
     from tpu_slam.ops.icp import icp_match
-
-    if jax.default_backend() == "tpu":
-        from tpu_slam.ops.pallas.plicp_fused import (
-            plicp_match_fused as plicp_match,
-        )
-    else:
-        from tpu_slam.ops.plicp import plicp_match
+    from tpu_slam.parallel.distributed_step import make_batched_matcher
 
     cfg = default_config()
     B = args.frames
@@ -59,6 +51,8 @@ def main():
     srcv = jnp.asarray(valid[1:])
     tgt = jnp.asarray(pts[:-1])
     tgtv = jnp.asarray(valid[:-1])
+
+    plicp = make_batched_matcher(cfg)
 
     # ground-truth frame-to-frame deltas in the sensor frame
     gt_d = np.stack(
@@ -80,7 +74,7 @@ def main():
         ),
         (
             "PL-ICP (lesson3)",
-            lambda: plicp_match(src, srcv, tgt, tgtv, cfg.plicp),
+            lambda: plicp(src, srcv, tgt, tgtv, jnp.zeros((B, 3))),
             lambda r: np.asarray(r.pose),
         ),
     ):

@@ -7,8 +7,7 @@ search over the cross-process keyframe shards, edge-sharded psum LM
 back-end — runs against the same mission on every process and must
 reproduce the single-device result exactly (accepts, closures,
 trajectory). This is the SURVEY §5 "keyframe store sharded across hosts"
-capability that round 3 guarded with NotImplementedError
-(VERDICT round-4 item 4).
+capability.
 
 Usage: python tests/mp_karto_worker.py <process_id> <num_processes> <port>
 """
@@ -71,7 +70,7 @@ def main():
           f"{len(acc)} accepted, {slam.loop_closures} closures)",
           flush=True)
 
-    # timed rung for SCALING.md §3 (round-4 VERDICT item 7): wall per
+    # timed rung: wall per
     # accepted scan of the FULL mesh mission, warm (the correctness run
     # above compiled every program), best-of-2
     if "--timed" in sys.argv:

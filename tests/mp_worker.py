@@ -122,7 +122,7 @@ def main():
         dist.get_poses(), ref.get_poses(), atol=5e-4
     )
 
-    # optional timed rung for SCALING.md: a bigger ring solved on the
+    # optional timed rung: a bigger ring solved on the
     # multi-process mesh, wall-clock printed per process
     if "--timed" in sys.argv:
         import time

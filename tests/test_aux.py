@@ -387,3 +387,76 @@ def test_config_presets_match_reference_yaml():
 
     with pytest.raises(ValueError):
         preset("nope")
+
+
+def test_preset_loads_without_pyyaml(monkeypatch):
+    """Shipped presets are TOML, read by the standard library: they must
+    load on a machine without PyYAML."""
+    import sys
+
+    from tpu_slam.config import config_from_yaml, preset
+
+    monkeypatch.setitem(sys.modules, "yaml", None)
+    cfg = preset("karto_outdoor")
+    assert cfg.scan.range_threshold == 50.0
+    assert cfg.offline.seeds_xy == 5
+    with pytest.raises(ImportError, match="PyYAML"):
+        config_from_yaml("params.yaml")
+
+
+@pytest.mark.parametrize("env_dir", [None, "custom"])
+def test_compile_cache_directory(monkeypatch, tmp_path, env_dir):
+    """JAX_COMPILATION_CACHE_DIR wins and no other directory is set;
+    without it the cache is one fixed, git-ignored directory in the
+    checkout."""
+    import jax
+
+    from tpu_slam.utils import compile_cache
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    before = jax.config.jax_compilation_cache_dir
+    min_s = jax.config.jax_persistent_cache_min_compile_time_secs
+    if env_dir is None:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        want = os.path.join(repo, ".jax_cache")
+    else:
+        want = str(tmp_path / env_dir)
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", want)
+    try:
+        assert compile_cache.enable() == want
+        if env_dir is None:
+            assert jax.config.jax_compilation_cache_dir == want
+        else:  # JAX reads the variable itself; enable() sets nothing
+            assert jax.config.jax_compilation_cache_dir == before
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
+        jax.config.update("jax_persistent_cache_min_compile_time_secs", min_s)
+    with open(os.path.join(repo, ".gitignore")) as f:
+        assert ".jax_cache/" in f.read().split()
+
+
+def test_scan_is_a_pytree_with_replace():
+    """Scan is a frozen dataclass registered with JAX (no flax): it maps,
+    jits and replaces fields."""
+    import jax
+
+    scans = make_scan(np.ones((2, 8), np.float32) * 2.0, ScanConfig(
+        num_beams=8))
+    leaves = jax.tree_util.tree_leaves(scans)
+    assert len(leaves) == 5
+    doubled = jax.jit(lambda s: s.replace(ranges=2 * s.ranges))(scans)
+    np.testing.assert_array_equal(np.asarray(doubled.ranges), 4.0)
+    np.testing.assert_array_equal(
+        np.asarray(doubled.valid), np.asarray(scans.valid))
+    with pytest.raises(dataclasses.FrozenInstanceError):
+        scans.ranges = None
+
+
+def test_load_map_without_pyyaml_names_the_package(monkeypatch, tmp_path):
+    import sys
+
+    from tpu_slam.utils.map_io import load_map
+
+    monkeypatch.setitem(sys.modules, "yaml", None)
+    with pytest.raises(ImportError, match="PyYAML"):
+        load_map(str(tmp_path / "map.yaml"))

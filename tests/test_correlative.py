@@ -281,62 +281,3 @@ def test_match_chains_equals_sequential(match_setup):
         )
     # padded lane: empty grid → zero response, MAX_VARIANCE covariance
     assert batched.response[3] == 0.0
-
-
-def test_pallas_responses_match_xla(match_setup):
-    """The Pallas response kernel (interpret mode on CPU) must be int32-
-    identical to the XLA batched-window path across the full match program
-    (pose, response, covariance)."""
-    scan_cfg, scans, pose_a, pose_b = match_setup
-    p = params()
-    sa, sb = index_scan(scans, 0), index_scan(scans, 1)
-    base_pts = world_points(sa, jnp.asarray(pose_a, jnp.float32))
-    base_valid = sa.valid & (sa.ranges <= p.range_threshold)
-    beam_valid = sb.valid & (sb.ranges <= p.range_threshold)
-    pts_l = jnp.where(beam_valid[..., None], sb.points(), 0.0)
-    guess = jnp.asarray(pose_b + np.array([0.05, -0.04, 0.04]), jnp.float32)
-
-    m_xla = CorrelativeMatcher(
-        p, use_response_expansion=False, pallas_responses=None
-    )
-    m_pl = CorrelativeMatcher(
-        p, use_response_expansion=False, pallas_responses="interpret"
-    )
-    r0 = m_xla.match(base_pts, base_valid, pts_l, beam_valid, guess)
-    r1 = m_pl.match(base_pts, base_valid, pts_l, beam_valid, guess)
-    np.testing.assert_allclose(
-        np.asarray(r1.pose), np.asarray(r0.pose), atol=1e-6
-    )
-    assert float(r1.response) == pytest.approx(float(r0.response), abs=1e-7)
-    np.testing.assert_allclose(
-        np.asarray(r1.covariance), np.asarray(r0.covariance), atol=1e-5
-    )
-
-    # raw numerators, both strides (front stride 2, fine stride 1)
-    from tpu_slam.ops.correlative import (
-        _responses_sliced, build_correlation_grid,
-    )
-    from tpu_slam.ops.pallas.correlative_response import (
-        responses_sliced_pallas,
-    )
-
-    grid = build_correlation_grid(p, guess[:2], base_pts, base_valid)
-    pts_cells = pts_l / p.resolution
-    angles = guess[2] + jnp.linspace(-0.3, 0.3, 7)
-    cand0 = jnp.array(
-        [p.center_cell - 16, p.center_cell - 14], jnp.int32
-    )
-    for n_x, n_y, stride in ((16, 16, 2), (3, 3, 1), (11, 7, 3)):
-        ref = np.asarray(
-            _responses_sliced(
-                grid, pts_cells, beam_valid, angles, cand0, n_x, n_y,
-                stride,
-            )
-        )
-        got = np.asarray(
-            responses_sliced_pallas(
-                grid, pts_cells, beam_valid, angles, cand0, n_x, n_y,
-                stride, interpret=True,
-            )
-        )
-        np.testing.assert_array_equal(got, ref)

@@ -5,7 +5,7 @@ unmodified from /root/reference by parity/Makefile, see tests/golden/ref_karto)
 and to tpu_slam, then asserts the outputs agree. This replaces round-1's
 self-certified replicas with verification against the actual C++.
 
-Precision note: tpu_slam's device geometry is float32 (a deliberate TPU design
+Precision note: tpu_slam's device geometry is float32 (a deliberate design
 choice); the reference computes world points in float64. A beam endpoint
 within ~1e-6 m of a cell boundary can therefore land in the neighboring cell
 (~0.1% of beams on adversarial geometry — the response INT arithmetic itself

@@ -4,7 +4,7 @@ The reference solver (SysSPA2d::doSPA, spa2d.cpp:425-609) is compiled
 unmodified and driven through tests/golden/ref_spa2d. Same graphs go through
 both solvers; corrected poses and final costs must agree. The reference runs
 in f64, tpu_slam's LM in f32 — tolerances quantify that gap (also feeding
-VERDICT item 6, the dtype study).
+the dtype study).
 """
 
 import numpy as np

@@ -77,7 +77,7 @@ def test_karto_front_end_tracks(loop_setup):
     gt = seq.gt_poses[accepted]
     ate = ate_rmse(est, gt)
     ate_odom = ate_rmse(odom[accepted], gt)
-    # measured 0.076 m vs 0.249 m odometry (VERDICT weak 5: gates sized
+    # measured 0.076 m vs 0.249 m odometry (gates sized
     # at ~2x the measured value so a 3x matcher regression FAILS)
     assert ate < ate_odom * 0.55, (ate, ate_odom)
     assert ate < 0.15, ate
@@ -92,7 +92,7 @@ def test_karto_loop_closure_improves(loop_setup):
     gt = seq.gt_poses[accepted]
     ate = ate_rmse(est, gt)
     assert slam.loop_closures >= 1, "no loop closures found"
-    # measured 0.023-0.029 m; 2x margin (VERDICT weak 5)
+    # measured 0.023-0.029 m; 2x margin
     assert ate < 0.06, ate
 
 
@@ -378,7 +378,7 @@ def test_karto_mesh_pipeline_matches_single_device(loop_setup):
     """KartoSLAM(cfg, mesh=...) — edge-sharded psum LM back-end + ring-pass
     loop-candidate search over the 8-device mesh — must reproduce the
     single-device mission: same accepted scans, same loop closures, same
-    trajectory (VERDICT item 2: distributed primitives wired into the
+    trajectory (distributed primitives wired into the
     flagship pipeline, not standalone)."""
     from tpu_slam.parallel.mesh import make_mesh
 

@@ -100,54 +100,6 @@ def test_plicp_batched():
         np.testing.assert_allclose(np.asarray(res.pose[i]), delta, atol=0.01)
 
 
-def test_fused_pallas_matches_xla_path():
-    """The fully-fused Pallas PL-ICP kernel (interpret mode on CPU) must
-    reproduce the XLA path's fixed point."""
-    from tpu_slam.ops.pallas.plicp_fused import plicp_match_fused
-
-    pairs = [two_scans(seed=s, delta=(0.07, -0.03, 0.05)) for s in range(3)]
-    sp = jnp.stack([p[0].points() for p in pairs])
-    sv = jnp.stack([p[0].valid for p in pairs])
-    tp = jnp.stack([p[1].points() for p in pairs])
-    tv = jnp.stack([p[1].valid for p in pairs])
-    cfg = PLICPConfig()
-    ref = plicp_match(sp, sv, tp, tv, cfg)
-    fused = plicp_match_fused(sp, sv, tp, tv, cfg, interpret=True)
-    np.testing.assert_allclose(
-        np.asarray(fused.pose), np.asarray(ref.pose), atol=1e-5
-    )
-    np.testing.assert_array_equal(
-        np.asarray(fused.num_inliers), np.asarray(ref.num_inliers)
-    )
-    np.testing.assert_allclose(
-        np.asarray(fused.covariance), np.asarray(ref.covariance),
-        rtol=1e-3, atol=1e-9,
-    )
-
-
-def test_fused_bcast_kernel_bit_identical_to_matmul():
-    """The broadcast-NN kernel variant (small-batch latency path) must be
-    BIT-identical to the MXU matmul variant — same correspondences, same
-    tie-breaks, same beam-edge invalidation."""
-    from tpu_slam.ops.pallas.plicp_fused import plicp_match_fused
-
-    pairs = [two_scans(seed=s, delta=(0.07, -0.03, 0.05)) for s in range(3)]
-    sp = jnp.stack([p[0].points() for p in pairs])
-    sv = jnp.stack([p[0].valid for p in pairs])
-    tp = jnp.stack([p[1].points() for p in pairs])
-    tv = jnp.stack([p[1].valid for p in pairs])
-    cfg = PLICPConfig()
-    a = plicp_match_fused(sp, sv, tp, tv, cfg, interpret=True, corr="matmul")
-    b = plicp_match_fused(sp, sv, tp, tv, cfg, interpret=True, corr="bcast")
-    np.testing.assert_array_equal(np.asarray(a.pose), np.asarray(b.pose))
-    np.testing.assert_array_equal(
-        np.asarray(a.num_inliers), np.asarray(b.num_inliers)
-    )
-    np.testing.assert_array_equal(
-        np.asarray(a.covariance), np.asarray(b.covariance)
-    )
-
-
 def test_plicp_point_to_point_config():
     """use_point_to_line_distance=0 → vanilla ICP inside the CSM loop
     (plicp_odometry.cc:128-130)."""
@@ -176,3 +128,43 @@ def test_scan_match_plicp_node():
         geo.relative(jnp.asarray(seq.gt_poses[0]), jnp.asarray(seq.gt_poses[-1]))
     )
     np.testing.assert_allclose(node.pose, gt_rel, atol=0.03)
+
+
+def _primitives(jaxpr):
+    """Every primitive name in a jaxpr, sub-jaxprs included."""
+    import jax
+
+    out = set()
+    for eqn in jaxpr.eqns:
+        out.add(eqn.primitive.name)
+        for sub in jax.core.jaxprs_in_params(eqn.params):
+            out |= _primitives(sub)
+    return out
+
+
+def test_nearest_neighbor_has_no_tf32_eligible_product():
+    """The NN distances feed an argmin: on a GPU a float32 matrix product
+    may run in TF32, so the search must be pure elementwise arithmetic."""
+    import jax
+
+    src = jnp.zeros((4, 360, 2))
+    tgt = jnp.zeros((4, 360, 2))
+    tv = jnp.ones((4, 360), bool)
+    prims = _primitives(
+        jax.make_jaxpr(nearest_neighbor)(src, tgt, tv).jaxpr)
+    assert "argmin" in prims
+    assert not prims & {"dot_general", "conv_general_dilated"}, prims
+
+
+def test_nearest_neighbor_exact_at_long_range():
+    """At a 12 m range the expanded |a|²+|b|²−2a·b form loses the
+    difference between adjacent beams; exact differences keep it."""
+    th = np.linspace(0.5, 0.5 + 2 * np.pi / 360 * 8, 9)
+    tgt = np.stack([12 * np.cos(th), 12 * np.sin(th)], -1).astype(np.float32)
+    mid = 0.5 * (tgt[3] + tgt[4])
+    src = (mid + 0.1 * (tgt[4] - tgt[3]))[None].astype(np.float32)
+    idx, d2 = nearest_neighbor(
+        jnp.asarray(src), jnp.asarray(tgt), jnp.ones(9, bool))
+    assert int(idx[0]) == 4
+    want = float(np.sum((src[0].astype(np.float64) - tgt[4]) ** 2))
+    assert float(d2[0]) == pytest.approx(want, rel=1e-4)

@@ -1,4 +1,4 @@
-"""Adversarial CSM-deviation suite (VERDICT item 8).
+"""Adversarial CSM-deviation suite.
 
 tpu_slam's PL-ICP reproduces the CSM subset that drives the lesson
 trajectories (ops/plicp.py); it deliberately omits Censi's closed-form

@@ -124,7 +124,7 @@ def _solve_graph(cfg, init, edges, info, **solver_kw):
 def test_mesh_lm_matches_single_device():
     """The FULL LM while_loop under shard_map (edges sharded over the
     8-device mesh, psum-assembled normal equations) must reproduce the
-    single-device solve — both dense and CG paths (VERDICT item 2)."""
+    single-device solve — both dense and CG paths."""
     from tpu_slam.parallel.mesh import make_mesh
 
     mesh = make_mesh()
@@ -163,7 +163,7 @@ def test_cg_tolerance_early_out():
 
 
 def test_f32_f64_divergence_bounded():
-    """SURVEY §7 hard part (e) / VERDICT item 6: quantify the f32 LM
+    """SURVEY §7 hard part (e): quantify the f32 LM
     against an f64 solve of the same large graph. The f32 path must land
     within centimeter-equivalent bounds of the f64 optimum."""
     import jax
@@ -207,52 +207,6 @@ def test_f32_f64_divergence_bounded():
     # ...and the corrected trajectories must agree to sub-centimeter
     d = np.linalg.norm(out32[:, :2] - out64[:, :2], axis=1)
     assert d.max() < 0.01, d.max()
-
-
-def test_fused_lm_matches_xla():
-    """The whole-doSPA fused Pallas kernel (solver/pallas_lm.py) must
-    reproduce the XLA LM program: same cost trajectory, same accept count,
-    poses within f32 sum-order noise (interpret mode; the real-TPU path is
-    exercised through PoseGraphSolver.compute() in the benchmarks)."""
-    import functools
-
-    import jax
-
-    from tpu_slam.solver import pose_graph as pg
-    from tpu_slam.solver.pallas_lm import fused_lm_solve
-
-    gt, edges = ring_graph(n=48, noise=0.015, seed=4)
-    rng = np.random.default_rng(2)
-    init = (gt + rng.normal(0, 0.08, gt.shape)
-            * (np.arange(len(gt)) > 0)[:, None]).astype(np.float32)
-    M = len(gt)
-    E = len(edges)
-    info = np.diag([100.0, 100.0, 400.0])
-    ei = jnp.asarray([e[0] for e in edges], jnp.int32)
-    ej = jnp.asarray([e[1] for e in edges], jnp.int32)
-    means = jnp.asarray(np.stack([e[2] for e in edges]), jnp.float32)
-    infos = jnp.asarray(np.tile(info, (E, 1, 1)), jnp.float32)
-    mask = jnp.ones((E,), bool)
-    free = jnp.asarray(np.arange(M) > 0)
-    p = jnp.asarray(init)
-
-    ref_fn = functools.partial(
-        pg._lm_loop_program, M=M, use_dense=False, iters=25,
-        cg_iterations=50, cg_tolerance=1e-10, schur_part=None,
-    )
-    pr, c0r, cr, gr = jax.jit(ref_fn)(
-        p, jnp.float32(1e-4), ei, ej, means, infos, mask, free
-    )
-    pf, c0f, cf, _itf, gf, _packed = fused_lm_solve(
-        p, ei, ej, means, infos, mask, free, 1e-4,
-        iters=25, cg_iters=50, cg_tol=1e-10, sq_min_delta=1e-8,
-        interpret=True,
-    )
-    assert float(c0f) == pytest.approx(float(c0r), rel=1e-5)
-    assert float(cf) == pytest.approx(float(cr), rel=1e-2, abs=1e-4)
-    # f32 sum orders differ between the two programs; both must reach the
-    # same tight optimum and the poses agree to millimeters
-    np.testing.assert_allclose(np.asarray(pf), np.asarray(pr), atol=3e-3)
 
 
 def test_mixed_schur_f64_path_matches_oracle():

@@ -1,1 +1,1 @@
-"""tpu_slam — TPU-native 2D laser SLAM (JAX/XLA/Pallas/pjit)."""
+"""tpu_slam — 2D laser SLAM as JAX/XLA device programs."""

@@ -9,17 +9,17 @@ invalid beams are masked, never dropped, so every scan in a batch has the same
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from tpu_slam import geometry
 from tpu_slam.config import ScanConfig
 
 
-@struct.dataclass
+@jax.tree_util.register_dataclass
+@dataclasses.dataclass(frozen=True)
 class Scan:
     """A batch of laser scans.
 
@@ -40,6 +40,9 @@ class Scan:
     angles: jax.Array
     stamp: jax.Array
     time_increment: jax.Array
+
+    def replace(self, **changes) -> "Scan":
+        return dataclasses.replace(self, **changes)
 
     @property
     def num_beams(self) -> int:

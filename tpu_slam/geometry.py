@@ -1,6 +1,6 @@
 """SE(2) geometry core.
 
-TPU-native replacement for the reference's scattered pose math:
+Replacement for the reference's scattered pose math:
 `karto::Pose2` / `karto::Transform` (reference `lesson6/lib/open_karto/include/
 open_karto/Karto.h:1959-2950`), tf2 transform chains
 (`lesson3/src/plicp_odometry.cc:356-370`), and Hector's

@@ -101,18 +101,14 @@ def occupancy_from_scans(
     Validated cell-identical vs the compiled reference
     (tests/test_golden_karto.py::test_golden_occupancy_grid).
 
-    engine: "device" (per-scan window one-hot MXU rasterization,
+    engine: "device" (per-scan window one-hot rasterization,
     gm.karto_counts_windows — the scatter-free device path), "device-scatter"
     (XLA scatter loop over closed-form Bresenham cells), "native" (the C++
     host rasterizer `native.karto_counts`, same semantics), or "auto"
-    (device on real TPUs, else native when available).
+    (native when available, else device).
 
-    scans_per_block: scans rasterized per scatter op. Counter-intuitively,
-    1 is fastest on v5e: XLA TPU scatter cost grows SUPERLINEARLY in the
-    per-op update count (512-scan 0.9M-cell rebuild: 1.5 s at B=1, 2.1 s at
-    B=4, 5.7 s at B=16, 26 s at B=64), so batching scans into bigger
-    scatters loses even though total updates are identical. Kept as a knob
-    for other backends, where the associativity argument does pay off.
+    scans_per_block: scans rasterized per scatter op of the
+    "device-scatter" engine.
     """
     ncells = grid_cfg.size_y * grid_cfg.size_x
     T = poses.shape[0]
@@ -120,12 +116,11 @@ def occupancy_from_scans(
         return np.full((grid_cfg.size_y, grid_cfg.size_x), -1, np.int8)
 
     if engine == "auto":
-        # measured round 3 (BENCHMARKS.md): the native C++ rasterizer beats
-        # the MXU one-hot windows path ~24× on real missions (0.05 s vs
-        # 1.19 s warm on the 984-scan regen; 0.22 vs 5.34 s at 5k scans,
-        # cell-identical outputs) — map regeneration is a host-side
-        # byte-twiddling workload, not a matmul. Device paths remain for
-        # hosts without the native library and for sharded-map pipelines.
+        # map regeneration is a host-side byte-twiddling workload, not a
+        # matmul: the native C++ rasterizer is preferred (cell-identical
+        # outputs). Device paths remain for hosts without the native
+        # library and for sharded-map pipelines. Which wins on a GPU is
+        # not measured yet.
         engine = "native-or-device"
 
     if engine == "device":

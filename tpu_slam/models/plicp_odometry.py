@@ -1,6 +1,6 @@
 """PL-ICP keyframe laser odometry.
 
-TPU-native re-design of lesson3's `ScanMatchPLICP` odometry node
+Re-design of lesson3's `ScanMatchPLICP` odometry node
 (`lesson3/src/plicp_odometry.cc:191-517`):
 
   * constant-velocity motion prediction        (:442-456 GetPrediction)

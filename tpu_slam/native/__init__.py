@@ -1,6 +1,6 @@
 """ctypes bindings for the native host-side components.
 
-Builds `libtpu_slam_native.so` from tpu_slam_native.cpp on first use (g++,
+Builds `libslam2d_native.so` from tpu_slam_native.cpp on first use (g++,
 -O3 -march=native); everything degrades gracefully to the numpy fallbacks if
 no compiler is available (``available()`` reports the state).
 """
@@ -15,7 +15,7 @@ import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "tpu_slam_native.cpp")
-_SO = os.path.join(_DIR, "libtpu_slam_native.so")
+_SO = os.path.join(_DIR, "libslam2d_native.so")
 
 _lib = None
 _tried = False

@@ -1,7 +1,7 @@
 // Native host-side runtime components.
 //
 // The reference's entire runtime is C++ (SURVEY §2: ~30.5k LoC of ROS/catkin
-// C++). In this framework the device compute path is JAX/XLA/Pallas; the
+// C++). In this framework the device compute path is JAX/XLA; the
 // host-side pieces that benefit from native code live here:
 //
 //   * ts_raycast       — batched exact ray/segment intersection: the data
@@ -112,10 +112,9 @@ static inline int64_t karto_round(float v) {
 // the world vector by threshold/r); TraceLine Bresenham marks every visited
 // in-bounds cell +1 pass INCLUSIVE of the endpoint cell; a valid endpoint
 // (r < threshold - 1e-6) adds one more pass and a hit. The host-native path
-// for offline/publish map regeneration — scatter-adds are the one primitive
-// where XLA-on-TPU loses to a scalar loop (superlinear scatter cost, see
-// BENCHMARKS.md). Validated cell-identical against the compiled reference
-// (tests/test_golden_karto.py).
+// for offline/publish map regeneration, a byte-twiddling workload where a
+// scalar loop is hard to beat. Validated cell-identical against the
+// compiled reference (tests/test_golden_karto.py).
 void ts_karto_counts(const float* origins,    // (T, 2) world
                      const float* endpoints,  // (T, N, 2) world (raw)
                      const float* ranges,     // (T, N) raw readings

@@ -1,6 +1,6 @@
 """Occupancy-grid substrate: ray rasterization + three cell models.
 
-TPU-native replacement for the reference's three grid stacks:
+Replacement for the reference's three grid stacks:
   * Hector log-odds grids + per-scan dedup update
     (`lesson4/include/lesson4/hector_mapping/map/OccGridMapBase.h:118-330`,
     `GridMapLogOdds.h:37-161`)
@@ -350,22 +350,23 @@ def karto_counts_windows(
     min_range: float,
     max_range: float,
 ) -> tuple[jax.Array, jax.Array]:
-    """Whole-mission Karto counters as MXU one-hot rasterization.
+    """Whole-mission Karto counters as one-hot rasterization.
 
-    Same EXACT cell semantics as karto_counts_update_scan, restructured for
-    TPU: XLA scatter-add cost is SUPERLINEAR in update count (BENCHMARKS.md)
-    and a mission is ~10⁷ single-cell updates. Instead, each scan's rays are
-    rasterized into a LOCAL (Wd × Wd) window around the scan position (every
-    traced cell lies within the clamped range threshold of the scan) with
-    two one-hot matmuls on the MXU:
+    Same EXACT cell semantics as karto_counts_update_scan, restructured to
+    avoid one scatter-add of ~10⁷ single-cell updates per mission. Instead,
+    each scan's rays are rasterized into a LOCAL (Wd × Wd) window around the
+    scan position (every traced cell lies within the clamped range
+    threshold of the scan) with two one-hot matrix products:
 
         window[y, x] = Σ_samples 1[y_s = y]·1[x_s = x]
                      = onehot_yᵀ @ onehot_x      (contraction over samples)
 
     and windows accumulate into the padded global grid with one
     dynamic-slice add per scan. 0/1 one-hots with f32 accumulation are
-    exact (counts ≪ 2²⁴). The endpoint double-count rides along as one
-    extra sample per beam.
+    exact (counts ≪ 2²⁴), and stay exact on a GPU: the operands are
+    bfloat16, so TF32 never applies, and every 0/1 product is exact in any
+    multiplier. The endpoint double-count rides along as one extra sample
+    per beam.
     """
     w = cfg.size_x
     h = cfg.size_y

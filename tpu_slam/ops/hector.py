@@ -1,6 +1,6 @@
 """Hector scan-to-map Gauss-Newton matcher.
 
-TPU-native re-design of the hector_slam matcher stack
+Re-design of the hector_slam matcher stack
 (`lesson4/include/lesson4/hector_mapping/`):
 
   * bilinear map value + gradient at each beam endpoint
@@ -88,10 +88,14 @@ def hessian_derivs(
         + (c * pts_map[..., 0] - s * pts_map[..., 1]) * dy
     )
     J = jnp.stack([dx * w, dy * w, rot * w], axis=-1)  # (..., N, 3)
+    # HIGHEST: a float32 contraction over the beams may otherwise run in
+    # TF32 on a GPU, and the GN step would lose its low bits
     dTr = jnp.einsum("...ni,...n->...i", J, (1.0 - val),
-                     preferred_element_type=pts_map.dtype)
+                     preferred_element_type=pts_map.dtype,
+                     precision=jax.lax.Precision.HIGHEST)
     H = jnp.einsum("...ni,...nj->...ij", J, J,
-                   preferred_element_type=pts_map.dtype)
+                   preferred_element_type=pts_map.dtype,
+                   precision=jax.lax.Precision.HIGHEST)
     return H, dTr
 
 
@@ -205,6 +209,7 @@ def sampling_covariance(
     return jnp.einsum(
         "...k,...ki,...kj->...ij", wn, d, d,
         preferred_element_type=pose_map.dtype,
+        precision=jax.lax.Precision.HIGHEST,
     )
 
 

@@ -1,6 +1,6 @@
 """Point-to-point ICP.
 
-TPU-native replacement for `pcl::IterativeClosestPoint` as used by
+Replacement for `pcl::IterativeClosestPoint` as used by
 `lesson2/src/scan_match_icp.cc:135-164` (frame-to-frame matching of
 consecutive scans). The reference needs ~0.12 s/frame through PCL's KD-tree;
 here each iteration is one batched nearest-neighbor matmul + a closed-form
@@ -15,7 +15,7 @@ import jax.numpy as jnp
 
 from tpu_slam import geometry as geo
 from tpu_slam.config import ICPConfig
-from tpu_slam.ops.matching import nearest_neighbor_auto
+from tpu_slam.ops.matching import nearest_neighbor
 
 
 def procrustes_step(
@@ -73,7 +73,7 @@ def icp_match(
 
     def body(pose, _):
         src_w = geo.apply(pose, src_pts)
-        idx, d2 = nearest_neighbor_auto(src_w, tgt_pts, tgt_valid)
+        idx, d2 = nearest_neighbor(src_w, tgt_pts, tgt_valid)
         w = (src_valid & (d2 < max_d2)).astype(src_pts.dtype)
         q = jnp.take_along_axis(tgt_pts, idx[..., None], axis=-2)
         delta = procrustes_step(src_w, q, w)

@@ -1,32 +1,30 @@
 """Shared correspondence search for the ICP family.
 
-TPU-native replacement for PCL's KD-tree correspondences
+Replacement for PCL's KD-tree correspondences
 (`lesson2/src/scan_match_icp.cc:138-143`) and CSM's angular-window
 correspondence tricks (`use_corr_tricks`, lesson3/src/plicp_odometry.cc:99).
 
-At 2D-scan sizes (N ≲ 2k beams) exhaustive pairwise distances are a single
-small matmul-shaped op — far better for the MXU than any tree or bucket
-structure, and exact (no "tricks" to verify). ‖a−b‖² is expanded as
-‖a‖² + ‖b‖² − 2a·b so the dominant term is one (N, 2)×(2, M) contraction.
+At 2D-scan sizes (N ≲ 2k beams) an exhaustive pairwise search is one fused
+elementwise-plus-argmin program, exact, with no "tricks" to verify.
+Distances are the exact differences (x − x')² + (y − y')²: the expanded form
+‖a‖² + ‖b‖² − 2a·b cancels catastrophically at a 12 m range, and a
+matrix-unit cross term (TF32 on a GPU) would let the argmin pick the wrong
+neighbour.
 """
 
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 BIG = 1e12
 
 
 def pairwise_sqdist(a: jax.Array, b: jax.Array) -> jax.Array:
     """(..., N, 2) × (..., M, 2) → (..., N, M) squared distances."""
-    an = jnp.sum(a * a, axis=-1)[..., :, None]
-    bn = jnp.sum(b * b, axis=-1)[..., None, :]
-    cross = jnp.einsum(
-        "...nd,...md->...nm", a, b, preferred_element_type=a.dtype
-    )
-    return an + bn - 2.0 * cross
+    dx = a[..., :, None, 0] - b[..., None, :, 0]
+    dy = a[..., :, None, 1] - b[..., None, :, 1]
+    return dx * dx + dy * dy
 
 
 def nearest_neighbor(
@@ -38,9 +36,7 @@ def nearest_neighbor(
     valid tgt point. Shapes: src (..., N, 2), tgt (..., M, 2) → ((..., N), (..., N))."""
     d2 = pairwise_sqdist(src, tgt)
     d2 = jnp.where(tgt_valid[..., None, :], d2, BIG)
-    idx = jnp.argmin(d2, axis=-1)
-    best = jnp.take_along_axis(d2, idx[..., None], axis=-1)[..., 0]
-    return idx, best
+    return jnp.argmin(d2, axis=-1), jnp.min(d2, axis=-1)
 
 
 def second_point_on_segment(
@@ -80,29 +76,6 @@ def masked_quantile(x: jax.Array, mask: jax.Array, q: float) -> jax.Array:
         jnp.floor(q * jnp.maximum(cnt - 1, 0)).astype(jnp.int32), 0, n - 1
     )
     return jnp.take_along_axis(xs, pos[..., None], axis=-1)[..., 0]
-
-
-def nearest_neighbor_auto(
-    src: jax.Array, tgt: jax.Array, tgt_valid: jax.Array
-) -> tuple[jax.Array, jax.Array]:
-    """Backend-dispatched NN: Pallas fused kernel on TPU (exact f32, VMEM
-    resident — see ops/pallas/nn.py), the einsum path elsewhere.
-
-    Accepts (..., N, 2) against (..., M, 2) with matching batch dims.
-    """
-    if jax.default_backend() != "tpu":
-        return nearest_neighbor(src, tgt, tgt_valid)
-    from tpu_slam.ops.pallas.nn import nearest_neighbor_pallas
-
-    batch_shape = src.shape[:-2]
-    n, m = src.shape[-2], tgt.shape[-2]
-    b = int(np.prod(batch_shape)) if batch_shape else 1
-    tgt_b = jnp.broadcast_to(tgt, batch_shape + (m, 2))
-    tv_b = jnp.broadcast_to(tgt_valid, batch_shape + (m,))
-    idx, d2 = nearest_neighbor_pallas(
-        src.reshape(b, n, 2), tgt_b.reshape(b, m, 2), tv_b.reshape(b, m)
-    )
-    return idx.reshape(batch_shape + (n,)), d2.reshape(batch_shape + (n,))
 
 
 def masked_quantiles(x: jax.Array, mask: jax.Array, qs: tuple) -> list:

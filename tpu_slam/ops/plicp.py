@@ -1,13 +1,13 @@
 """PL-ICP: point-to-line ICP with CSM-style outlier trimming.
 
-TPU-native re-design of CSM's `sm_icp` (Censi's PL-ICP) as driven by
+Re-design of CSM's `sm_icp` (Censi's PL-ICP) as driven by
 `lesson3/src/scan_match_plicp.cc:38-300` and `lesson3/src/plicp_odometry.cc:
 327-436`. The reference's per-point correspondence "tricks", adjacent-beam
 second point, percentile/adaptive outlier trimming, and point-to-line
 minimization (CSM params documented at plicp_odometry.cc:69-186) are
 reproduced as fixed-shape batched tensor ops:
 
-  * correspondences: exhaustive masked nearest-neighbor (one MXU contraction)
+  * correspondences: exhaustive masked nearest-neighbor (exact differences)
   * j2 = better of j1±1 (csm icp_corr semantics) → line (q1, q2), normal n
   * trimming: outliers_maxPerc percentile gate + adaptive-order quantile gate
     (plicp_odometry.cc:139-156) via masked sort quantiles
@@ -32,9 +32,11 @@ from tpu_slam.config import PLICPConfig
 from tpu_slam.ops.matching import (
     BIG,
     masked_quantiles,
-    nearest_neighbor_auto,
+    nearest_neighbor,
     second_point_on_segment,
 )
+
+_HI = jax.lax.Precision.HIGHEST
 
 
 class PLICPResult(NamedTuple):
@@ -49,7 +51,7 @@ def _correspondences(pose, src_pts, src_valid, tgt_pts, tgt_valid, cfg,
                      point_to_line: bool):
     """One correspondence round → (q1, n, residual, gate)."""
     src_w = geo.apply(pose, src_pts)
-    j1, d2 = nearest_neighbor_auto(src_w, tgt_pts, tgt_valid)
+    j1, d2 = nearest_neighbor(src_w, tgt_pts, tgt_valid)
     q1 = jnp.take_along_axis(tgt_pts, j1[..., None], axis=-2)
     gate = src_valid & (d2 < cfg.max_correspondence_dist**2)
     gate &= jnp.take_along_axis(tgt_valid, j1, axis=-1)
@@ -98,11 +100,13 @@ def _gn_step(pose, src_pts, src_w, q1, n, w, damping=1e-9):
     J = jnp.concatenate([n, j_th[..., None]], axis=-1)  # (..., N, 3)
     r = jnp.sum(n * (src_w - q1), axis=-1)  # (..., N)
     Jw = J * w[..., None]
+    # HIGHEST: a float32 contraction over the beams may otherwise run in
+    # TF32 (about 10 mantissa bits) on a GPU, which moves the GN step
     H = jnp.einsum("...ni,...nj->...ij", Jw, J,
-                   preferred_element_type=src_pts.dtype)
+                   preferred_element_type=src_pts.dtype, precision=_HI)
     H = H + damping * jnp.eye(3, dtype=H.dtype)
     b = -jnp.einsum("...ni,...n->...i", Jw, r,
-                    preferred_element_type=src_pts.dtype)
+                    preferred_element_type=src_pts.dtype, precision=_HI)
     delta = jnp.linalg.solve(H, b[..., None])[..., 0]
     # degenerate-solve guard (CSM "not converged" analogue,
     # plicp_odometry.cc:416): too few inliers or non-finite step → no update

@@ -1,6 +1,6 @@
 """IMU + wheel-odometry motion-distortion correction.
 
-TPU-native re-design of lesson5's `LidarUndistortion`
+Re-design of lesson5's `LidarUndistortion`
 (`lesson5/src/lidar_undistortion.cc:96-463`). The reference walks deques with
 three host threads and per-point while-loops; here the whole correction is one
 vectorized device program:

@@ -140,10 +140,12 @@ def make_sharded_hector_step(
                 + (c * pts_map[..., 0] - s * pts_map[..., 1]) * dy
             )
             J = jnp.stack([dx * w, dy * w, rot * w], axis=-1)
+            hi = jax.lax.Precision.HIGHEST  # no TF32 (ops/hector.py)
             dTr = jax.lax.psum(
-                jnp.einsum("ni,n->i", J, (1.0 - val)), axis
+                jnp.einsum("ni,n->i", J, (1.0 - val), precision=hi), axis
             )
-            H = jax.lax.psum(jnp.einsum("ni,nj->ij", J, J), axis)
+            H = jax.lax.psum(
+                jnp.einsum("ni,nj->ij", J, J, precision=hi), axis)
 
             ok = (H[0, 0] != 0.0) & (H[1, 1] != 0.0)
             Hs = H + 1e-9 * jnp.eye(3, dtype=H.dtype)

@@ -80,8 +80,15 @@ def save_map(
 
 
 def load_map(yaml_path: str) -> tuple[np.ndarray, GridConfig]:
-    """Read a map_server YAML + PGM pair → (int8 nav_msgs map, GridConfig)."""
-    import yaml
+    """Read a map_server YAML + PGM pair → (int8 nav_msgs map, GridConfig).
+
+    Needs PyYAML; writing a map (save_map) does not."""
+    try:
+        import yaml
+    except ImportError as e:
+        raise ImportError(
+            "reading a map_server YAML needs PyYAML (pip install pyyaml)"
+        ) from e
 
     with open(yaml_path) as f:
         meta = yaml.safe_load(f)
